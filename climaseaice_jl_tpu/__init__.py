@@ -1,6 +1,6 @@
-"""climaseaice_jl_tpu — a TPU-native sea-ice modeling framework.
+"""climaseaice_jl_tpu — a JAX sea-ice modeling framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 CliMA/ClimaSeaIce.jl (reference mounted read-only at /root/reference): slab
 and layered snow+ice thermodynamics, flux-form WENO/upwind advection,
 viscous and elasto-visco-plastic (αEVP) rheologies with explicit and

@@ -1,6 +1,6 @@
 """Flux-form tracer advection: Centered, UpwindBiased and WENO schemes.
 
-TPU-native replacement for the Oceananigans advection subsystem used by the
+JAX replacement for the Oceananigans advection subsystem used by the
 reference (`src/sea_ice_advection.jl`, delegating to `WENO(order≤9)`,
 `UpwindBiased(order=5)`, `FluxFormAdvection`; see SURVEY.md §2.3).
 

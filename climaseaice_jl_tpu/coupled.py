@@ -1,6 +1,6 @@
 """Ice-ocean coupling prototype: SeaIceModel + slab mixed-layer ocean.
 
-TPU-native equivalent of the reference's coupling prototype
+JAX equivalent of the reference's coupling prototype
 (`validation/ice_ocean_model/ice_ocean_model.jl`), with the Oceananigans
 ocean replaced by a single-layer (mixed-layer) slab ocean — the coupling
 physics is the same:

@@ -37,8 +37,7 @@ class LatitudeCoriolis:
     kernels (`momentum_tendencies_kernel_functions.jl:31,64` take any
     Coriolis via `x_f_cross_U`/`y_f_cross_U`).  The cell-center f is
     interpolated to (f,c)/(c,f) velocity points with the C-grid ℑx/ℑy
-    averages — the same discrete forms the fused curvilinear Pallas kernel
-    derives in VMEM, so jnp and fused paths agree."""
+    averages."""
     rotation_rate: object = EARTH_ROTATION_RATE
 
 

@@ -1,6 +1,6 @@
 """Momentum equations: tendencies, explicit solver, split-explicit αEVP solver.
 
-Vectorized TPU-native equivalents of:
+Vectorized JAX equivalents of:
 
 * `src/SeaIceDynamics/sea_ice_momentum_equations.jl` — config;
 * `src/SeaIceDynamics/momentum_tendencies_kernel_functions.jl` — tendencies;
@@ -8,9 +8,8 @@ Vectorized TPU-native equivalents of:
 * `src/SeaIceDynamics/split_explicit_momentum_equations.jl` — split-explicit
   substepping.
 
-On TPU, the reference's ~2·substeps tiny kernel launches per outer step
-(called out as the bottleneck at
-`split_explicit_momentum_equations.jl:150-156`) collapse into one
+The reference's ~2·substeps kernel launches per outer step (called out as
+the bottleneck at `split_explicit_momentum_equations.jl:150-156`) become one
 ``lax.fori_loop`` inside a single XLA executable; each substep's halo
 re-pads are pure slice updates (single-device) or ``ppermute`` collectives
 (distributed) injected via the ``halo_u``/``halo_v`` callables.
@@ -45,28 +44,14 @@ class ExplicitSolver:
 
 @dataclasses.dataclass(frozen=True)
 class SplitExplicitSolver:
-    """N pseudo-time substeps per step (`split_explicit_momentum_equations.jl:18-34`).
-
-    ``fused``: 'auto' uses the VMEM-resident Pallas substep-loop kernel when
-    the configuration supports it and the backend is TPU; 'always' forces it
-    (interpret mode off-TPU, for testing); 'never' keeps the jnp path.
-    """
+    """N pseudo-time substeps per step (`split_explicit_momentum_equations.jl:18-34`)."""
     substeps: int = 120
-    fused: str = "auto"
     # halo_exchange (distributed runs only):
     #   'per_substep' — exchange u/v halos via ppermute after every update;
     #   'wide'        — communication-avoiding: exchange once per outer step
     #                   with halos ≥ 2·substeps+3 wide, local-only fills in
     #                   the loop (`split_explicit_momentum_equations.jl:51-64`)
     halo_exchange: str = "per_substep"
-    # fixed_tiles=(TX, TY) (TY=None → 1-D y-spanning slabs): pin the fused
-    # tiled-padded kernel's tile decomposition instead of auto-picking it
-    # from the local array shape.  With the same tile shape, the Mosaic
-    # kernel compiled for serial and distributed runs is identical, making
-    # the EVP substep arithmetic shard-shape-invariant (the engineered f32
-    # reproducibility mode; the reference gets the same property for free
-    # from per-point MPI arithmetic, `distributed_tests_utils.jl:83-86`).
-    fixed_tiles: tuple | None = None
 
 
 @pytree_dataclass
@@ -346,12 +331,6 @@ def _make_evp_substep(model, state, dt, clock, P, un, vn, halo_u, halo_v):
 
 _BAND_W = 8   # interior cells per boundary band: the merge takes the 4-cell
               # substep stencil depth, whose own stencil reads 4 more.
-              # NOT plan-derived on purpose: the on-chip curve
-              # (validation/scratch_band_cost.py, VALIDATION.md r5) shows a
-              # band substep costs 73-90 % of a FULL tile substep at every
-              # size ≤ 768² — dispatch-bound, width-independent — so the
-              # policy stays non-default; its win regime (if any) is
-              # ≫ 768²/shard on slow links, a pod-run hypothesis.
 
 
 def _band_slicer(grid, dim, side):
@@ -420,7 +399,7 @@ def _band_submodel(model, dim, side):
     from ..model import Masks
     bmasks = Masks(solid_cc=cut_m(m.solid_cc), per_fc=cut_m(m.per_fc),
                    per_cf=cut_m(m.per_cf), per_ff=cut_m(m.per_ff),
-                   imm_ff=cut_m(m.imm_ff), solid_full=cut_m(m.solid_full))
+                   imm_ff=cut_m(m.imm_ff))
 
     dyn = model.dynamics
     from .stresses import StressFunction, SemiImplicitStress
@@ -493,7 +472,7 @@ def split_explicit_momentum_step(model, state, dt, u_start, v_start,
     # are identical to per-half-update exchanges (overlap cells recompute the
     # neighbor's values from the same inputs), but the exchange count per
     # substep halves and the two messages fuse into one payload — the
-    # TPU-native analog of the reference's grouped async halo sends
+    # analog of the reference's grouped async halo sends
     # (`split_explicit_momentum_equations.jl:170-187`).
     from ..fields import _meshed as _dim_meshed
     meshed = _dim_meshed(grid, 0) or _dim_meshed(grid, 1)

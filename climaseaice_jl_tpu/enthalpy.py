@@ -1,6 +1,6 @@
 """Enthalpy-method vertical column sea-ice model.
 
-TPU-native equivalent of `src/EnthalpyMethodSeaIceModel.jl`: a standalone
+JAX equivalent of `src/EnthalpyMethodSeaIceModel.jl`: a standalone
 1-D(z) model with prognostic enthalpy H, diagnostic temperature T = H/c,
 phase mask ϕ, phase-dependent molecular diffusivity
 κ = κ_ice (1 − ϕ) + κ_water ϕ, and tendency ∂t H = ∂z(κ ∂z T), stepped with

@@ -40,9 +40,9 @@ def _meshed(grid: Grid, dim: int) -> bool:
 def _exchange(q, axis, axis_name, P, H, N):
     """Ring halo exchange along array axis ``axis`` over mesh axis
     ``axis_name``: left halo ← left neighbor's rightmost interior strip, right
-    halo ← right neighbor's leftmost.  The TPU-native replacement for the
+    halo ← right neighbor's leftmost.  The JAX replacement for the
     reference's MPI `fill_halo_regions!` (SURVEY.md §2.4): two paired
-    `lax.ppermute` shifts riding ICI.
+    `lax.ppermute` shifts.
     """
     fwd = [(i, (i + 1) % P) for i in range(P)]
     bwd = [(i, (i - 1) % P) for i in range(P)]
@@ -132,8 +132,8 @@ def _fill_y_distributed(q, grid: Grid, face: bool):
 
 def _fill_x(q, grid: Grid, face: bool):
     # Single concatenate per fill (instead of chained .at[].set dynamic-update
-    # -slices): one fused write of the whole array — ~8x cheaper inside the
-    # EVP substep loop on TPU.
+    # -slices): one fused write of the whole array inside the EVP substep
+    # loop.
     H, N = grid.Hx, grid.Nx
     topo = grid.topology[0]
     if topo == FLAT or H == 0:
@@ -298,7 +298,7 @@ def fill_halos_many(qs, locs, grid: Grid):
     identical to ``FILLERS[loc](q, grid)``, but every meshed-direction
     exchange is batched into ONE ppermute payload per direction (all
     fields' strips stacked).  The reference posts its per-field halo sends
-    together (`split_explicit_momentum_equations.jl:170-187`); on TPU the
+    together (`split_explicit_momentum_equations.jl:170-187`); here the
     batching additionally collapses ~2·n_fields collective rounds per step
     into two, which is the dominant fixed cost of a distributed step at
     small tile sizes.  ``locs``: "cc"/"fc"/"cf"/"ff" per field."""

@@ -10,6 +10,7 @@ by the reference's seasonal-cycle configuration
 
 from __future__ import annotations
 
+import numpy as np
 import jax.numpy as jnp
 
 from .utils import pytree_dataclass, static_field
@@ -29,10 +30,14 @@ class FieldTimeSeries:
     cyclical: bool = static_field(default=False)
 
     def __post_init__(self):
-        times = jnp.asarray(self.times)
-        object.__setattr__(self, "times", times)
-        object.__setattr__(self, "data", jnp.asarray(self.data))
+        # Convert host input only: pytree unflattening (jit, AOT lowering)
+        # passes leaves that must stay as they are.
+        for name in ("times", "data"):
+            x = getattr(self, name)
+            if isinstance(x, (list, tuple, np.ndarray)):
+                object.__setattr__(self, name, jnp.asarray(x))
         if self.cyclical and self.period is None:
+            times = self.times
             dt_last = times[-1] - times[-2]
             object.__setattr__(self, "period", times[-1] - times[0] + dt_last)
 

@@ -1,6 +1,6 @@
 """Staggered C-grid layer with precomputed metric arrays.
 
-TPU-native equivalent of the Oceananigans grid subsystem used by the reference
+JAX equivalent of the Oceananigans grid subsystem used by the reference
 (`RectilinearGrid`, `LatitudeLongitudeGrid`, `ImmersedBoundaryGrid`, `Flat`
 topologies; see /root/reference/src/ClimaSeaIce.jl:36-37 and SURVEY.md §2.3).
 
@@ -28,6 +28,7 @@ metrics.
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from .utils import pytree_dataclass, static_field
@@ -313,10 +314,8 @@ def _fold_metric_halo(full, Nx, Hx, Ny, Hy, xface, yface):
     (sign +1); the x-mirror follows the array's staggered location like
     `fields._fill_y_fold`.  The y-face seam column is symmetrized
     (0.5·(q + q_mirror)) so the seam row's update is exactly x-mirror
-    symmetric — required for the fold halo to *self-evolve* to exact mirror
-    values inside exchange-free substep chunks (pallas_evp_tiled_curvilinear).
-    Without this the y-halo keeps edge-clamped values, which match the fold
-    image only approximately (by the cap construction's symmetry)."""
+    symmetric.  Without this the y-halo keeps edge-clamped values, which
+    match the fold image only approximately (by the cap construction's symmetry)."""
     if Hy == 0:
         return full
     p = np.arange(full.shape[0])
@@ -687,12 +686,34 @@ def with_halo(grid: Grid, halo):
     return g
 
 
+def solid_crop_rows(g: Grid) -> int:
+    """Count of southernmost interior rows that are FULLY solid (land across
+    every x) on a serial immersed grid; 0 when there are none, when the
+    grid is meshed (a per-shard crop would differ between shards), when the
+    mask is traced, or when the whole domain is solid.
+
+    On such a row every face is peripheral, so flux divergences are exactly
+    zero and velocities stay zero; callers may skip the rows outright (see
+    :func:`south_crop_grid`).  The land-masked tripolar Arctic basin of
+    ``validation/run_tripolar_basin.py`` has 468 of its 960 rows fully
+    solid (the 45–58°N closure)."""
+    if g.mesh_axes is not None or g.solid_cc is None:
+        return 0
+    if isinstance(g.solid_cc, jax.core.Tracer):
+        return 0
+    s = np.asarray(g.solid_cc) > 0.5
+    inter = s[g.Hx:g.Hx + g.Nx, g.Hy:g.Hy + g.Ny]
+    first = np.where(inter.all(axis=1), g.Ny, np.argmin(inter, axis=1))
+    cs = int(first.min())
+    return 0 if cs >= g.Ny else cs
+
+
 def south_crop_grid(g: Grid, cs: int):
     """Grid view of padded rows [cs, nyp): same halos, Ny − cs interior rows
     (exact sub-array views of the same metric values).  Used to skip
-    fully-solid southern rows in pointwise/stencil passes (the tendencies'
-    analog of the tiled EVP tier's solid-row crop): outputs for rows whose
-    stencil stays ≥ Hy inside the view are bitwise those of the full pass.
+    fully-solid southern rows (:func:`solid_crop_rows`) in pointwise and
+    stencil passes: outputs for rows whose stencil stays ≥ Hy inside the
+    view are bitwise those of the full pass.
     The view's south boundary semantics are meaningless — callers must
     discard its first Hy output rows (full rows [cs, cs+Hy), fully solid)."""
 

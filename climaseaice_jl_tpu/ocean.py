@@ -2,7 +2,7 @@
 
 The reference's coupling prototype drives the ice with a full Oceananigans
 ``HydrostaticFreeSurfaceModel`` (`validation/ice_ocean_model/
-melting_baroclinicity.jl:60-76`).  This module provides the TPU-native
+melting_baroclinicity.jl:60-76`).  This module provides the JAX
 analog at the fidelity the coupling physics actually exercises: a
 free-surface single-layer ocean on the same staggered C-grid as the ice,
 with prognostic currents (u, v), surface elevation η, and mixed-layer
@@ -11,7 +11,7 @@ currents are prescribed), this ocean *responds* to wind and ice-ocean
 stress, so melt-driven buoyancy patterns advect and the ice feels evolving
 currents through its `SemiImplicitStress` bottom drag.
 
-Discretization — designed for XLA/TPU, everything inside one jitted step:
+Discretization — designed for XLA, everything inside one jitted step:
 
 * **Momentum + continuity**: forward-backward scheme (η first with old
   velocities, then u with the new η, then v with the new u), the standard

@@ -1,6 +1,6 @@
 """Staggered-grid difference and interpolation operators.
 
-TPU-native replacement for the Oceananigans operator layer the reference's
+JAX replacement for the Oceananigans operator layer the reference's
 kernels are written against (δx/δy differences, ℑx/ℑy interpolations at
 staggered locations; `src/Rheologies/Rheologies.jl:10-17`).
 

@@ -1,10 +1,10 @@
 """Multi-process / multi-host execution surface.
 
-TPU-native analog of the reference's MPI launcher path
+JAX analog of the reference's MPI launcher path
 (`test/test_distributed_sea_ice.jl:40-64` spawns `mpiexec -n 4` workers;
 `test/distributed_tests_utils.jl:91-105` checks per-rank output): here each
 *process* owns a subset of the devices of one global ``jax.sharding.Mesh``
-(ICI within a slice, DCN across hosts), the SPMD step from
+(NVLink within a host, the network across hosts), the SPMD step from
 :mod:`.stepper` runs unchanged under ``jit``, and this module supplies the
 glue that MPI provides the reference for free:
 
@@ -45,8 +45,8 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
     """Join the multi-process JAX runtime (the ``mpiexec`` launch analog).
 
     Call once per process before any device computation.  With no arguments,
-    environment-based auto-detection is used (TPU pods set this up
-    automatically); on CPU/manual clusters pass the coordinator's
+    environment-based auto-detection is used (cluster schedulers such as
+    SLURM set this up); on CPU/manual clusters pass the coordinator's
     ``host:port``, the world size, and this process's rank.
     """
     jax.distributed.initialize(coordinator_address=coordinator_address,

@@ -1,6 +1,6 @@
 """Slab (Semtner-style) thermodynamics: fluxes, tendencies and step kernels.
 
-Vectorized TPU-native implementation of the reference's column physics:
+Vectorized JAX implementation of the reference's column physics:
 
 * `src/SeaIceThermodynamics/slab_heat_and_tracer_fluxes.jl` (conductive flux,
   combined snow+ice resistors-in-series, interface temperature),

@@ -14,6 +14,7 @@ This replaces the reference's mutable-struct + multiple-dispatch architecture
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import field as _field
 
 import jax
@@ -66,3 +67,16 @@ def tupleify(x):
 def asdtype(x, dtype):
     """Convert a python scalar / numpy value to a numpy scalar of ``dtype``."""
     return np.asarray(x, dtype=dtype)[()]
+
+
+def enable_compile_cache():
+    """Point JAX's persistent compilation cache at ``$JAX_COMPILATION_CACHE_DIR``
+    when set, else at ``.jax_cache`` in the repository root, and return the
+    path.  The path is part of the cache key, so it is fixed, never
+    temporary.  Called by the GPU entry scripts (``chip_smoke.py``,
+    ``bench.py``), never at package import."""
+    path = (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or os.path.join(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), ".jax_cache"))
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path

@@ -1,4 +1,4 @@
-"""Ice melting over a dynamical (shallow-water) ocean — the TPU-native
+"""Ice melting over a dynamical (shallow-water) ocean — the JAX
 analog of the reference's `validation/ice_ocean_model/melting_baroclinicity.jl`:
 an ice pack over an ocean with prognostic currents, warm anomaly melting the
 ice from below, brine/meltwater salinity coupling, and wind-driven ice drift

@@ -130,7 +130,8 @@ def test_solid_row_crop_tendencies_bitwise(monkeypatch):
     is exactly zero (all fluxes killed at peripheral faces) and every kept
     row's stencil reads identical values in the row-sliced view."""
     import climaseaice_jl_tpu as csi
-    import climaseaice_jl_tpu.dynamics.pallas_evp_tiled_curvilinear as tc
+    import climaseaice_jl_tpu.model as M
+    from climaseaice_jl_tpu.grids import solid_crop_rows
     from climaseaice_jl_tpu.model import _step
 
     N = 96
@@ -159,12 +160,12 @@ def test_solid_row_crop_tendencies_bitwise(monkeypatch):
         return model, state
 
     model, state = build()
-    assert tc._solid_crop_rows(model) == 40
+    assert solid_crop_rows(model.grid) == 40
     for _ in range(3):
         state = _step(model, state, 600.0)
     cropped = state
 
-    monkeypatch.setattr(tc, "_solid_crop_rows", lambda m: 0)
+    monkeypatch.setattr(M, "solid_crop_rows", lambda g: 0)
     model, state = build()
     for _ in range(3):
         state = _step(model, state, 600.0)
@@ -172,3 +173,58 @@ def test_solid_row_crop_tendencies_bitwise(monkeypatch):
         a = np.asarray(getattr(cropped, name))
         b = np.asarray(getattr(state, name))
         assert np.array_equal(a, b), name
+
+
+def _crop_grid(mask, N=32, **kw):
+    import climaseaice_jl_tpu as csi
+    grid = csi.TripolarGrid((N, N), southernmost_latitude=-70.0, halo=5, **kw)
+    return grid if mask is None else csi.ImmersedBoundaryGrid(grid, mask)
+
+
+def _band(rows, N=32):
+    mask = np.zeros((N, N), bool)
+    mask[:, :rows] = True
+    mask[N // 3:N // 2, 3 * N // 4:] = True   # landmass into the fold
+    return mask
+
+
+@pytest.mark.parametrize("case,expected", [
+    ("deep_band", 12),        # fully-solid southern rows are counted
+    ("ragged_band", 3),       # one column reaching deeper does not count
+    ("no_mask", 0),           # no immersed mask, nothing to crop
+    ("all_solid", 0),         # degenerate domain: compute as before
+    ("meshed", 0),            # per-shard crops would differ between shards
+])
+def test_solid_crop_rows(case, expected):
+    """The solid-row count (grids.solid_crop_rows) that the serial tracer
+    divergence crops: fully-solid southern rows only, and none where a
+    crop would be wrong or meaningless."""
+    from climaseaice_jl_tpu.grids import solid_crop_rows
+    if case == "deep_band":
+        grid = _crop_grid(_band(12))
+    elif case == "ragged_band":
+        mask = _band(3)
+        mask[7, :9] = True
+        grid = _crop_grid(mask)
+    elif case == "no_mask":
+        grid = _crop_grid(None)
+    elif case == "all_solid":
+        grid = _crop_grid(np.ones((32, 32), bool))
+    else:
+        grid = _crop_grid(_band(12)).evolve(mesh_axes=("x", "y"),
+                                            mesh_shape=(2, 2))
+    assert solid_crop_rows(grid) == expected
+
+
+def test_south_crop_grid_is_a_view():
+    """south_crop_grid keeps halos and metrics as exact sub-array views of
+    the full grid, shifted by the cropped rows."""
+    from climaseaice_jl_tpu.grids import south_crop_grid
+    grid = _crop_grid(_band(12))
+    gc = south_crop_grid(grid, 12)
+    assert (gc.Nx, gc.Ny, gc.Hx, gc.Hy) == (grid.Nx, grid.Ny - 12,
+                                            grid.Hx, grid.Hy)
+    for name in ("dx_cc", "dy_cf", "az_ff", "solid_cc"):
+        np.testing.assert_array_equal(np.asarray(getattr(gc, name)),
+                                      np.asarray(getattr(grid, name))[:, 12:],
+                                      err_msg=name)

@@ -26,7 +26,7 @@ def _coastline_model(immersed_drag, substeps=8):
         top_momentum_stress={"u": 0.1, "v": 0.0},
         bottom_momentum_stress=csi.SemiImplicitStress(),
         immersed_drag=immersed_drag,
-        solver=csi.SplitExplicitSolver(substeps=substeps, fused="never"))
+        solver=csi.SplitExplicitSolver(substeps=substeps))
     model = csi.sea_ice_model(grid, dynamics=dynamics, ice_thermodynamics=None,
                               advection=csi.WENO(order=5),
                               timestepper="ForwardEuler")
@@ -94,7 +94,7 @@ def test_immersed_drag_inactive_on_domain_walls():
             top_momentum_stress={"u": 0.1, "v": 0.05},
             bottom_momentum_stress=csi.SemiImplicitStress(),
             immersed_drag=drag,
-            solver=csi.SplitExplicitSolver(substeps=8, fused="never"))
+            solver=csi.SplitExplicitSolver(substeps=8))
         model = csi.sea_ice_model(grid, dynamics=dynamics,
                                   ice_thermodynamics=None,
                                   advection=csi.WENO(order=5),

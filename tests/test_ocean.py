@@ -1,4 +1,4 @@
-"""Dynamical (shallow-water) ocean tests: the TPU-native analog of the
+"""Dynamical (shallow-water) ocean tests: the JAX analog of the
 reference coupling prototype's Oceananigans ocean
 (`validation/ice_ocean_model/melting_baroclinicity.jl:60-76`)."""
 

@@ -545,7 +545,7 @@ def test_evp_momentum_matches_oracle():
         coriolis=csi.FPlane(f=1e-4),
         top_momentum_stress={"u": 0.05, "v": 0.02},
         bottom_momentum_stress=csi.SemiImplicitStress(ue=0.08, ve=-0.04),
-        solver=csi.SplitExplicitSolver(substeps=10, fused="never"))
+        solver=csi.SplitExplicitSolver(substeps=10))
     model = csi.sea_ice_model(grid, dynamics=dyn, ice_thermodynamics=None,
                               advection=None, timestepper="ForwardEuler")
     rng = np.random.default_rng(11)
@@ -582,7 +582,7 @@ def test_evp_weno_advection_matches_oracle():
         coriolis=csi.FPlane(f=1e-4),
         top_momentum_stress={"u": 0.05, "v": 0.02},
         bottom_momentum_stress=csi.SemiImplicitStress(ue=0.08, ve=-0.04),
-        solver=csi.SplitExplicitSolver(substeps=10, fused="never"))
+        solver=csi.SplitExplicitSolver(substeps=10))
     model = csi.sea_ice_model(grid, dynamics=dyn, ice_thermodynamics=None,
                               advection=csi.WENO(order=5),
                               timestepper="ForwardEuler")

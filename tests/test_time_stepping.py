@@ -134,8 +134,6 @@ def test_callable_time_dependent_stress():
     functional analog of the reference's per-iteration wind-refresh callback
     (`examples/ice_advected_by_anticyclone.jl`)."""
     import numpy as np
-    from climaseaice_jl_tpu.dynamics.pallas_evp import fused_available
-    from climaseaice_jl_tpu.dynamics.pallas_evp_padded import padded_fused_available
 
     grid = csi.RectilinearGrid(size=(16, 16), x=(0, 16e3), y=(0, 16e3),
                                topology=("periodic", "periodic"))
@@ -150,7 +148,6 @@ def test_callable_time_dependent_stress():
         solver=csi.SplitExplicitSolver(substeps=20),
     )
     model = csi.sea_ice_model(grid=grid, dynamics=dyn, ice_thermodynamics=None)
-    assert not fused_available(model) and not padded_fused_available(model)
 
     state = csi.initial_state(model, h=1.0, a=1.0)
     s1 = csi.step(model, state, 600.0)       # τ(t=0) = 0 → no motion

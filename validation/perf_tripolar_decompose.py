@@ -1,10 +1,9 @@
-"""Per-term decomposition of the flagship tripolar step at 1152x960 (TPU).
+"""Per-term decomposition of the flagship tripolar step at 1152x960.
 
-VERDICT r4 item 1's alternative bar: a measured per-term breakdown of the
-full step (RK3 + EVP-120 + WENO-7 advection + slab+snow thermo) so the
-remaining gap to >=18 M pts/s is attributed, not hand-waved.  Ablations:
+A measured per-term breakdown of the full step (RK3 + EVP-120 + WENO-7
+advection + slab+snow thermo) by ablation:
 
-  full        RK3, all physics                        (the 13.15 M number)
+  full        RK3, all physics
   mom         RK3, momentum only (no advection/thermo) -> 3x EVP-120 loops
   adv         RK3, advection+tracer update only (dynamics=None)
   thermo      RK3, thermo only (dynamics=None, advection=None)

@@ -1,4 +1,4 @@
-"""2-D dynamics validation runs (TPU, float32)."""
+"""2-D dynamics validation runs (float32)."""
 import sys, os
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "examples"))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
@@ -8,7 +8,7 @@ from climaseaice_jl_tpu import step as model_step
 
 km, minute, day = 1000.0, 60.0, 86400.0
 
-# 1. ice advected by anticyclone: 2 days, 128^2, 150 substeps (f32 on TPU)
+# 1. ice advected by anticyclone: 2 days, 128^2, 150 substeps (f32)
 import ice_advected_by_anticyclone as anti
 model, state = anti.build(N=128, substeps=150, dtype="float32")
 dt = 2 * minute
@@ -29,7 +29,7 @@ np.savez("validation/anticyclone_final.npz", h=h, u=u, a=a)
 # 2. coastline: 3 days, 256x128, 150 substeps
 import ice_advected_on_coastline as coast
 model2, state2 = coast.build(Nx=256, Ny=128, substeps=150)
-# rebuild at f32 for TPU
+# rebuild at f32
 grid = csi.RectilinearGrid(size=(256, 128), x=(-256*km, 256*km), y=(0, 256*km),
                            halo=4, topology=("periodic", "bounded"), dtype="float32")
 def land(x, y):
