@@ -45,9 +45,8 @@ def build(N, substeps, dtype="float32"):
 
 def main():
     import jax
-    from chip_smoke import card_info
     from climaseaice_jl_tpu.model import _step
-    from climaseaice_jl_tpu.utils import enable_compile_cache
+    from climaseaice_jl_tpu.utils import card_info, enable_compile_cache
 
     dev = jax.devices()[0]
     if dev.platform != "gpu":

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import subprocess
 from dataclasses import field as _field
 
 import jax
@@ -72,11 +73,20 @@ def asdtype(x, dtype):
 def enable_compile_cache():
     """Point JAX's persistent compilation cache at ``$JAX_COMPILATION_CACHE_DIR``
     when set, else at ``.jax_cache`` in the repository root, and return the
-    path.  The path is part of the cache key, so it is fixed, never
-    temporary.  Called by the GPU entry scripts (``chip_smoke.py``,
-    ``bench.py``), never at package import."""
+    path.  The path is fixed, never temporary, so that later runs from the
+    same checkout find what earlier ones compiled.  Called by the GPU entry
+    scripts (``chip_smoke.py``, ``bench.py``), never at package import."""
     path = (os.environ.get("JAX_COMPILATION_CACHE_DIR")
             or os.path.join(os.path.dirname(os.path.dirname(
                 os.path.abspath(__file__))), ".jax_cache"))
     jax.config.update("jax_compilation_cache_dir", path)
     return path
+
+
+def card_info():
+    """``name, power.limit`` of every NVIDIA card, one line each, from
+    ``nvidia-smi`` (a child process that never touches JAX)."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"],
+                       capture_output=True, text=True, timeout=60, check=True)
+    return r.stdout.strip()

@@ -1,7 +1,8 @@
 """The parts of chip_smoke.py (and bench.py's device check) that run without
 a GPU: compile-cache placement, refusal without a card, the comparison
-against the float64 reference, phase selection, and both phases at small
-size on the CPU (the four-card phase on four of the virtual devices)."""
+against the float64 reference, phase selection, both phases at small size
+on the CPU (the four-card phase on four of the virtual devices), and a
+planted fault that the comparison must catch."""
 
 import json
 import os
@@ -59,23 +60,33 @@ def test_fails_outside_the_repo(tmp_path):
 
 def _fields(rng, n=64):
     return {"h": 1.0 + rng.random((n, n)), "a": 0.5 + 0.4 * rng.random((n, n)),
-            "u": rng.standard_normal((n, n)), "v": rng.standard_normal((n, n))}
+            "u": rng.standard_normal((n, n)), "v": rng.standard_normal((n, n)),
+            "sig11": rng.standard_normal((n, n)),
+            "sig12": rng.standard_normal((n, n))}
 
 
-@pytest.mark.parametrize("fault,message", [
-    ("none", None), ("nan", "u not finite"),
-    ("a_above_one", "outside [0, 1]"), ("negative_h", "negative thickness"),
-    ("above_multiple", "v error"), ("above_cap", "u error")])
-def test_compare_fields(fault, message):
-    """Finite, bounded fields within REL_MULTIPLE × the CPU f32 error (floor
-    REL_FLOOR, cap REL_CAP) pass; each fault is reported."""
+@pytest.mark.parametrize("fault,message,tight", [
+    ("none", None, False), ("none", None, True),
+    ("nan", "u not finite", False), ("a_above_one", "outside [0, 1]", False),
+    ("negative_h", "negative thickness", False),
+    ("above_multiple", "v card f32 vs f64", False),
+    ("above_cap", "u card f32 vs f64", False),
+    ("above_multiple", "sig12 card f32 vs f64", True),
+    ("above_cap", "u card f32 vs f64", True)])
+def test_compare_fields(fault, message, tight):
+    """Finite, bounded fields within the regime's multiple of the CPU f32
+    error (clamped: CLAMPED_MULTIPLE, cap CLAMPED_CAP; unclamped:
+    TIGHT_MULTIPLE, floor TIGHT_FLOOR, cap TIGHT_CAP, stresses included)
+    pass; each fault is reported."""
     rng = np.random.default_rng(0)
     ref64 = _fields(rng)
     noise = {f: rng.standard_normal(q.shape) for f, q in ref64.items()}
-    err = {"h": 1e-6, "a": 1e-6, "u": 0.02, "v": 0.02}
+    err = dict.fromkeys(ref64, 1e-6)
+    if not tight:
+        err.update(u=0.02, v=0.02)
     ref32 = {f: q + err[f] * np.abs(q).mean() * noise[f]
              for f, q in ref64.items()}
-    got = {f: q + 1.5 * err[f] * np.abs(q).mean() * noise[f][::-1]
+    got = {f: q + 1.2 * err[f] * np.abs(q).mean() * noise[f][::-1]
            for f, q in ref64.items()}
     if fault == "nan":
         got["u"][3, 4] = np.nan
@@ -84,11 +95,13 @@ def test_compare_fields(fault, message):
     elif fault == "negative_h":
         got["h"][5, 5] = -1e-9
     elif fault == "above_multiple":
-        got["v"] = ref64["v"] * (1 + 10 * err["v"])
+        f = "sig12" if tight else "v"
+        got[f] = ref64[f] * (1 + 10 * err[f])
     elif fault == "above_cap":
-        ref32["u"] = ref64["u"] * 1.3
-        got["u"] = ref64["u"] * 1.25
-    bad = cs.compare_fields("case", got, ref64, ref32)
+        big = 1e-3 if tight else 0.3
+        ref32["u"] = ref64["u"] * (1 + big)
+        got["u"] = ref64["u"] * (1 + 0.8 * big)
+    bad = cs.compare_fields("case", got, ref64, ref32, tight)
     if message is None:
         assert bad == []
     else:
@@ -128,20 +141,41 @@ def test_phase_selection(argv, phase, count, monkeypatch, capsys):
                                            "count": count}}
 
 
-def test_single_card_phases_small():
-    """Both single-card phases at small size, with the float64 reference
-    computed in a child process, exactly as on the card (whose process runs
-    without x64)."""
+@pytest.fixture
+def no_x64():
+    """The card's process runs without x64; so do these tests."""
     jax.config.update("jax_enable_x64", False)
+    yield
+    jax.config.update("jax_enable_x64", True)
+
+
+def test_single_card_phases_small(no_x64):
+    """All single-card phases at small size, with the float64 reference
+    computed in a child process, exactly as on the card."""
+    cs.single_card(steps=1, sizes={
+        "flagship": {"N": 16, "substeps": 4},
+        "unclamped": {"N": 16, "substeps": 4},
+        "tripolar": {"Nx": 24, "Ny": 20, "substeps": 4}})
+
+
+def test_dropped_halo_fill_is_caught(no_x64, monkeypatch):
+    """Control: with the u halo fill dropped from the EVP substep loop on
+    the card's side only, the unclamped comparison fails (the reference
+    child runs the intact code).  Measured: u 2.96e-3 from float64 against
+    a limit of 5.0e-7.  16 substeps let the stale halo reach the interior
+    through the 5-cell halo."""
+    from climaseaice_jl_tpu.dynamics import momentum
+    jax.clear_caches()
+    monkeypatch.setattr(momentum, "fill_halos_fc", lambda q, grid: q)
     try:
-        cs.single_card(steps=1, sizes={
-            "flagship": {"N": 16, "substeps": 4},
-            "tripolar": {"Nx": 24, "Ny": 20, "substeps": 4}})
+        with pytest.raises(RuntimeError, match="unclamped: u card f32 vs f64"):
+            cs.single_card(steps=1, sizes={"unclamped": {"N": 16,
+                                                         "substeps": 16}})
     finally:
-        jax.config.update("jax_enable_x64", True)
+        jax.clear_caches()
 
 
-def test_four_card_phase_on_virtual_devices():
+def test_four_card_phase_on_virtual_devices(no_x64):
     """The --four phase on four virtual CPU devices at 512² (256² shards:
     the RK3 stages run as a lax.scan inside shard_map, as on the cards)."""
     cs.four_cards(N=512, substeps=2, steps=1, devices=jax.devices()[:4])
